@@ -12,18 +12,20 @@ matching each bit's response vector against the sign vectors of all 961^2
 candidate offset pairs identifies (p0_k, p1_k) uniquely (collision
 probability 2^-M per pair).
 
-Writes ``video_stabilization_tpu/ops/orb_pattern.py`` with the recovered
+Writes ``video_stabilization/ops/orb_pattern.py`` with the recovered
 (256, 2) int arrays and self-verifies on held-out images (prints the exact
 bit agreement rate; must be 1.0).
 
 Run once: python benchmarks/extract_orb_pattern.py
 """
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 SIZE = 96                 # probe image side (keypoint at center)
 M = 192                   # probe images used for identification
@@ -154,7 +156,8 @@ def main():
     # 1.0 minus at most cv2's internal +-1-gray-level blur-rounding ties
     assert rate >= 0.997, "extraction failed verification"
 
-    out_path = "/root/repo/video_stabilization_tpu/ops/orb_pattern.py"
+    out_path = os.path.join(REPO, "video_stabilization", "ops",
+                            "orb_pattern.py")
     with open(out_path, "w") as f:
         f.write(
             '"""cv2.ORB\'s learned 256-pair BRIEF pattern '

@@ -1,7 +1,7 @@
 // Native host-side runtime: frame ring buffer + Y4M decoder.
 //
 // The reference's data path is a synchronous cv::VideoCapture >> frame in
-// the render loop (src/main_utils.cpp:397-417).  For a TPU engine that can
+// the render loop (src/main_utils.cpp:397-417).  For an engine that can
 // consume hundreds of frames per second, decode must be decoupled from the
 // device feed: this library provides
 //
@@ -208,7 +208,7 @@ int y4m_is_c420(Y4MReader* r) { return r->c420; }
 // Reads one frame's RAW planes packed Y|U|V into out (ysize + 2*csize
 // bytes) with NO colorspace conversion — pure fread.  The per-pixel float
 // YUV->BGR loop in y4m_read_bgr is ~10x the cost of the read itself at
-// 360p on this host; the TPU engine converts on device instead
+// 360p; the engine converts on device instead
 // (ops/image.py yuv_planes_to_bgr / yuv_flat_to_bgr), which also halves
 // H2D bytes for C420.
 int y4m_read_yuv(Y4MReader* r, uint8_t* out) {

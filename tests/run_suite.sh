@@ -1,9 +1,8 @@
 #!/bin/bash
 # Run the test suite one file per pytest process.
 #
-# Why: this host's jaxlib CPU backend can segfault/abort the *process* on
-# the largest fresh engine-program compiles (see docs/roadmap.md,
-# "PJRT:CPU is unstable...").  In a single pytest process that kills the
+# Why: jaxlib's CPU backend can segfault/abort the *process* on the
+# largest fresh engine-program compiles.  In a single pytest process that kills the
 # whole run; per-file processes bound the blast radius to one file, and a
 # crashed file re-run alone passes.  Functionally identical coverage to
 # `python -m pytest tests/ -q`.

@@ -1,18 +1,15 @@
-"""Driver-contract tests for bench.py's measurement protocol layer.
-
-Round 3 recorded rc=0 but parsed=null because the driver cannot parse
-multi-line stdout; round 4 recorded rc=124 because the suite had no time
-budget.  These tests pin the protocol pieces that prevent a recurrence —
-pure host logic, no TPU, no jax.
-"""
+"""Contract tests for bench.py's measurement protocol layer: one JSON
+line on stdout, a time budget with recorded skips, latency forensics, the
+drift metric — pure host logic, no device, no jax."""
 
 import json
+import os
 import sys
 
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import bench
 
@@ -28,7 +25,7 @@ class TestSnapshotJson:
 
     def test_single_line_valid_json(self):
         results = {
-            1: {"name": "cfg1", "tpu_fps_per_chip": 100.0,
+            1: {"name": "cfg1", "fps_per_chip": 100.0,
                 "vs_baseline": 10.0, "p50_latency_ms": 5.0},
             2: {"name": "cfg2", "error": "boom"},
         }
@@ -40,7 +37,7 @@ class TestSnapshotJson:
         assert set(d["configs"]) == {"1", "2"}
 
     def test_headline_follows_config_flag(self):
-        results = {3: {"name": "cfg3", "tpu_fps_per_chip": 50.0,
+        results = {3: {"name": "cfg3", "fps_per_chip": 50.0,
                        "vs_baseline": 5.0}}
         d = json.loads(bench.snapshot_json(results, self._args(config=3)))
         assert d["value"] == 50.0
@@ -81,7 +78,7 @@ class TestBudget:
 class TestLatencyStats:
     def test_stall_forensics(self):
         lat = np.full(100, 10.0)
-        lat[7] = 400.0                       # one relay stall
+        lat[7] = 400.0                       # one host stall
         stats = bench._latency_stats(lat)
         assert stats["p50"] == 10.0
         assert "1/100" in stats["note"] and "sample 7" in stats["note"]

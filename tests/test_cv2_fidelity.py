@@ -12,7 +12,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from video_stabilization_tpu.ops.gftt_host import (  # noqa: E402
+from video_stabilization.ops.gftt_host import (  # noqa: E402
     good_features_to_track_np,
     gray_u8_cv2exact_np,
     min_eig_response_np,
@@ -40,7 +40,7 @@ def test_gray_np_bit_exact(shape):
 def test_gray_jax_matches_np():
     import jax.numpy as jnp
 
-    from video_stabilization_tpu.ops.image import gray_u8_cv2exact
+    from video_stabilization.ops.image import gray_u8_cv2exact
 
     rng = np.random.default_rng(0)
     img = _rand_img(rng, 720, 1280)
@@ -103,9 +103,9 @@ def test_lk_cv2exact_border_points():
     # border and require sub-2e-2 px worst-case endpoint agreement with cv2.
     import jax.numpy as jnp
 
-    from video_stabilization_tpu.config import LKConfig
-    from video_stabilization_tpu.ops.lk import lk_track
-    from video_stabilization_tpu.ops.pyramid import build_pyramid
+    from video_stabilization.config import LKConfig
+    from video_stabilization.ops.lk import lk_track
+    from video_stabilization.ops.pyramid import build_pyramid
 
     rng = np.random.default_rng(4)
     big = rng.integers(0, 256, (140, 180), np.uint8)

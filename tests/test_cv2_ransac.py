@@ -16,7 +16,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from video_stabilization_tpu.motion.cv2_ransac import (  # noqa: E402
+from video_stabilization.motion.cv2_ransac import (  # noqa: E402
     CvRNG,
     estimate_affine_partial_2d_cv2,
     estimate_rigid_cv2_host,

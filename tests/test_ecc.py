@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.ops.ecc import ecc_refine_euclidean
-from video_stabilization_tpu.sim import (
+from video_stabilization.ops.ecc import ecc_refine_euclidean
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     make_default_texture,
     render_frame,

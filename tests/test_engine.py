@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.config import (
+from video_stabilization.config import (
     GFTTConfig,
     LKConfig,
     ORBConfig,
@@ -18,13 +18,13 @@ from video_stabilization_tpu.config import (
     StabilizationMode,
     StabilizerConfig,
 )
-from video_stabilization_tpu.engine import (
+from video_stabilization.engine import (
     Stabilizer,
     init_carry,
     make_step_fn,
     smoothing_homography,
 )
-from video_stabilization_tpu.sim import (
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     make_default_texture,
     render_frame,
@@ -364,7 +364,7 @@ class TestScanApi:
     be numerically identical to feeding frames one at a time."""
 
     def test_scan_matches_per_frame(self, footage):
-        from video_stabilization_tpu.engine import make_scan_fn
+        from video_stabilization.engine import make_scan_fn
 
         cfg = small_config(past=4, future=2)
         n = 8

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.config import GFTTConfig, LKConfig
-from video_stabilization_tpu.ops import build_pyramid
-from video_stabilization_tpu.ops.gftt import good_features_to_track, min_eig_response
-from video_stabilization_tpu.ops.lk import lk_track
-from video_stabilization_tpu.sim import (
+from video_stabilization.config import GFTTConfig, LKConfig
+from video_stabilization.ops import build_pyramid
+from video_stabilization.ops.gftt import good_features_to_track, min_eig_response
+from video_stabilization.ops.lk import lk_track
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     make_default_texture,
     move_right,
@@ -96,8 +96,8 @@ class TestLK:
         accurate as cv2 on the same corners (non-inferiority), and strongly
         accurate in absolute terms.
         """
-        from video_stabilization_tpu.motion.similarity import transform_points
-        from video_stabilization_tpu.sim import inter_frame_homography
+        from video_stabilization.motion.similarity import transform_points
+        from video_stabilization.sim import inter_frame_homography
 
         tex = make_default_texture(jax.random.key(0), size=512)
         pa = DEFAULT_APP_PARAMS
@@ -191,7 +191,7 @@ class TestCv2ExactTracker:
         iteration schedule — must agree with cv2.calcOpticalFlowPyrLK
         endpoints to sub-0.1px median on identical corners (the fidelity
         referee used by bench.py's reference-compat drift gate)."""
-        from video_stabilization_tpu.sim import move_right
+        from video_stabilization.sim import move_right
 
         tex = make_default_texture(jax.random.key(0), size=512)
         pa = DEFAULT_APP_PARAMS
@@ -224,7 +224,7 @@ class TestCv2ExactGFTT:
         """The parallel priority-MIS fixpoint must reproduce OpenCV's
         sequential greedy suppression decisions exactly (including the
         rounded-cell 3x3-neighborhood quirk) on adversarial random input."""
-        from video_stabilization_tpu.ops.gftt import _greedy_cv2exact
+        from video_stabilization.ops.gftt import _greedy_cv2exact
 
         rng = np.random.default_rng(7)
         m, k, min_dist = 500, 120, 7.3
@@ -352,7 +352,7 @@ class TestIndependentMotion:
                                    atol=0.15)
 
     def test_global_fit_unbiased_by_object(self):
-        from video_stabilization_tpu.motion.ransac import (
+        from video_stabilization.motion.ransac import (
             estimate_similarity_ransac,
         )
 

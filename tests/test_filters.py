@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.ops.filters import (
+from video_stabilization.ops.filters import (
     clahe,
     median_blur,
     preprocess_for_registration,

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.motion import (
+from video_stabilization.motion import (
     HomographyParams,
     compose_homography,
     decompose_homography,

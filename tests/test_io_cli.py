@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.cli.args import parse_args
-from video_stabilization_tpu.io import SimulatorSource, VideoWriter
-from video_stabilization_tpu.io.native import (
+from video_stabilization.cli.args import parse_args
+from video_stabilization.io import SimulatorSource, VideoWriter
+from video_stabilization.io.native import (
     NativeFrameRing,
     NativeY4MReader,
     PrefetchingFileSource,
@@ -112,7 +112,7 @@ class TestNative:
         """read_yuv + on-device yuv_flat_to_bgr must match the native
         reader's own host-side BGR conversion (same BT.601 constants and
         rounding, native/framebuf.cpp y4m_read_bgr)."""
-        from video_stabilization_tpu.ops.image import yuv_flat_to_bgr
+        from video_stabilization.ops.image import yuv_flat_to_bgr
 
         path = str(tmp_path / "clip.y4m")
         w = VideoWriter(path, 30, (16, 24), subsampling=subsampling)
@@ -140,7 +140,7 @@ class TestNative:
         r_yuv.close()
 
     def test_prefetching_yuv_source(self, tmp_path):
-        from video_stabilization_tpu.io.native import PrefetchingYUVSource
+        from video_stabilization.io.native import PrefetchingYUVSource
 
         path = str(tmp_path / "clip.y4m")
         w = VideoWriter(path, 30, (12, 16), subsampling="420")
@@ -181,8 +181,8 @@ class TestNative:
 
 class TestHeadlessApp:
     def test_simulator_headless_run(self, tmp_path):
-        from video_stabilization_tpu.cli.app import run
-        from video_stabilization_tpu.cli.args import AppConfig
+        from video_stabilization.cli.app import run
+        from video_stabilization.cli.args import AppConfig
 
         out = str(tmp_path / "out.y4m")
         cfg = AppConfig(
@@ -202,8 +202,8 @@ class TestHeadlessApp:
     def test_checkpoint_resume_roundtrip(self, tmp_path):
         """--checkpoint saves the carry at exit; --resume restores it
         (engine/checkpoint.py wired through the CLI)."""
-        from video_stabilization_tpu.cli.app import run
-        from video_stabilization_tpu.cli.args import AppConfig
+        from video_stabilization.cli.app import run
+        from video_stabilization.cli.args import AppConfig
 
         ckpt = str(tmp_path / "state.npz")
         base = dict(
@@ -227,8 +227,8 @@ class TestHeadlessApp:
         assert 16 in counters
 
     def test_trail_mode_headless(self, tmp_path):
-        from video_stabilization_tpu.cli.app import run
-        from video_stabilization_tpu.cli.args import AppConfig
+        from video_stabilization.cli.app import run
+        from video_stabilization.cli.args import AppConfig
 
         out = str(tmp_path / "trail.y4m")
         cfg = AppConfig(
@@ -248,14 +248,14 @@ class TestHeadlessApp:
         assert frames[-1].max() > 0      # composited content, not black
 
     def test_motion_model_flag(self):
-        from video_stabilization_tpu.cli.args import parse_args
+        from video_stabilization.cli.args import parse_args
 
         cfg = parse_args(["--simulator", "--motion-model", "affine"])
         assert cfg.motion_model == "affine"
 
     def test_affine_motion_model_runs(self):
-        from video_stabilization_tpu.cli.app import run
-        from video_stabilization_tpu.cli.args import AppConfig
+        from video_stabilization.cli.app import run
+        from video_stabilization.cli.args import AppConfig
 
         cfg = AppConfig(
             input_mode="simulator", past_window_secs=0.2,
@@ -265,11 +265,11 @@ class TestHeadlessApp:
         assert run(cfg) == 0
 
     def test_stats_flag_headless(self, capsys):
-        """--stats prints the printTimings-style kernel taxonomy at startup
+        """--stats prints the printTimings-style kernel categories at startup
         and per-second fps/step/inlier lines (reference:
         src/stabilizer.cpp:982-1009, 667-702)."""
-        from video_stabilization_tpu.cli.app import run
-        from video_stabilization_tpu.cli.args import AppConfig
+        from video_stabilization.cli.app import run
+        from video_stabilization.cli.args import AppConfig
 
         cfg = AppConfig(
             input_mode="simulator", past_window_secs=0.2,
@@ -287,7 +287,7 @@ class TestTerminalDisplay:
     def test_render_ansi_shape_and_colors(self):
         """The OpenCV-free preview (cli/term_display.py): half-block ANSI
         rendering — 2 pixels per text row, 24-bit colors, title row."""
-        from video_stabilization_tpu.cli.term_display import render_ansi
+        from video_stabilization.cli.term_display import render_ansi
 
         img = np.zeros((64, 96, 3), np.uint8)
         img[:, :48] = (255, 0, 0)                       # left half blue (BGR)
@@ -301,7 +301,7 @@ class TestTerminalDisplay:
         assert "38;2;0;0;255" in body[0]
 
     def test_side_by_side_and_no_tty_fallback(self):
-        from video_stabilization_tpu.cli.term_display import (
+        from video_stabilization.cli.term_display import (
             TerminalDisplay, render_side_by_side,
         )
 

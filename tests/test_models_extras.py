@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.models import MotionModel, fit_homography_dlt, fit_motion
-from video_stabilization_tpu.motion.similarity import transform_points
-from video_stabilization_tpu.ops.compositing import (
+from video_stabilization.models import MotionModel, fit_homography_dlt, fit_motion
+from video_stabilization.motion.similarity import transform_points
+from video_stabilization.ops.compositing import (
     compute_translation_shift,
     copy_feathered,
     warped_mask,
@@ -95,12 +95,12 @@ class TestCompositing:
 
 class TestCheckpoint:
     def test_roundtrip(self, tmp_path):
-        from video_stabilization_tpu.config import (
+        from video_stabilization.config import (
             GFTTConfig, LKConfig, RansacConfig, StabilizerConfig,
         )
-        from video_stabilization_tpu.engine import Stabilizer, init_carry
-        from video_stabilization_tpu.engine.checkpoint import load_carry, save_carry
-        from video_stabilization_tpu.sim import (
+        from video_stabilization.engine import Stabilizer, init_carry
+        from video_stabilization.engine.checkpoint import load_carry, save_carry
+        from video_stabilization.sim import (
             DEFAULT_APP_PARAMS, make_default_texture, render_frame,
         )
 
@@ -136,11 +136,11 @@ class TestCheckpoint:
         np.testing.assert_array_equal(o1, o2)
 
     def test_shape_mismatch_raises(self, tmp_path):
-        from video_stabilization_tpu.config import (
+        from video_stabilization.config import (
             GFTTConfig, LKConfig, RansacConfig, StabilizerConfig,
         )
-        from video_stabilization_tpu.engine import init_carry
-        from video_stabilization_tpu.engine.checkpoint import load_carry, save_carry
+        from video_stabilization.engine import init_carry
+        from video_stabilization.engine.checkpoint import load_carry, save_carry
 
         cfg_a = StabilizerConfig(
             past_frames=3, future_frames=2, working_height=100,

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.config import StabilizationMode
-from video_stabilization_tpu.engine import (
+from video_stabilization.config import StabilizationMode
+from video_stabilization.engine import (
     init_carry,
     make_offline_fn,
     make_scan_fn,
@@ -140,34 +140,42 @@ def test_scan_still_matches_step_after_fold_in_keys(footage):  # noqa: F811
     np.testing.assert_array_equal(np.asarray(outs), outs_s)
 
 
-def test_envelope_violation_telemetry(footage):  # noqa: F811
-    """A stream whose accumulated lock drifts past the Pallas warp's ~9 deg
-    rotation envelope must raise carry.envelope_violations instead of
-    silently rendering zeros (VERDICT r3 weak #6): the stream-batched
-    pipeline disables the per-frame projective fallback."""
-    from video_stabilization_tpu.engine import make_offline_batched_fn
-    from video_stabilization_tpu.parallel import init_batched_carry
+def test_rotated_accumulated_lock_renders_like_single_warp(footage):  # noqa: F811
+    """A stream whose accumulated lock sits 25 degrees off renders, through
+    the stream-batched offline pipeline, what the single-frame warp gives
+    for the transform it used, and no output frame is blank."""
+    from video_stabilization.engine import make_offline_batched_fn
+    from video_stabilization.ops.warp import warp_affine
+    from video_stabilization.parallel import init_batched_carry
 
     mode = StabilizationMode.ACCUMULATED_FULL_LOCK
     cfg = dataclasses.replace(small_config(past=2, future=1),
                               static_mode=int(mode))
+    k = 4
     fn = make_offline_batched_fn(cfg)
     carry = init_batched_carry(cfg, 2, int(mode), jax.random.key(0))
+    clip = jnp.asarray(np.stack([footage[:3 * k], footage[:3 * k]]))
+    for i in range(2):                     # fill the window, anchor the lock
+        carry, _ = fn(carry, clip[:, i * k:(i + 1) * k])
 
-    # pre-rotate stream 1's accumulated transform far past the envelope
+    # pre-rotate stream 1's accumulated transform by 25 degrees
     th = np.deg2rad(25.0)
     big_rot = np.array([[np.cos(th), -np.sin(th), 0.0],
                         [np.sin(th), np.cos(th), 0.0],
                         [0.0, 0.0, 1.0]], np.float32)
-    accum = np.stack([np.eye(3, dtype=np.float32), big_rot])
-    carry = carry._replace(
-        accum_h=jnp.asarray(accum),
-        accum_active=jnp.ones((2,), bool),
-        n=jnp.full((2,), 8, jnp.int32),   # past warm-up: locks advance
-    )
+    carry = carry._replace(accum_h=carry.accum_h.at[1].set(big_rot))
+    carry, (outs, _) = fn(carry, clip[:, 2 * k:])
+    outs = np.asarray(outs)
+    assert all(outs[s, j].std() > 5.0 for s in range(2) for j in range(k))
 
-    frames2 = jnp.asarray(np.stack([footage[:4], footage[:4]]))  # (S, K, ...)
-    carry, (outs, _) = fn(carry, frames2)
-    viol = np.asarray(carry.envelope_violations)
-    assert viol[0] == 0, f"identity stream flagged: {viol}"
-    assert viol[1] >= 4, f"out-of-envelope stream not flagged: {viol}"
+    # stream 1's last output, rendered again by the single-frame warp
+    h = np.asarray(carry.last_h[1]).copy()
+    rot = np.degrees(np.arctan2(h[1, 0], h[0, 0]))
+    assert abs(abs(rot) - 25.0) < 5.0, rot
+    h[0:2, 2] /= cfg.scale_factor
+    pres = jnp.asarray(footage[3 * k - cfg.future_frames - 1], jnp.float32)
+    avg = 0.5 * jnp.mean(pres, axis=(0, 1))
+    single = warp_affine(pres, jnp.asarray(h), avg)
+    single_u8 = np.asarray(jnp.clip(jnp.round(single), 0, 255).astype(jnp.uint8))
+    diff = np.abs(outs[1, -1].astype(np.int16) - single_u8.astype(np.int16))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.01

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.ops import (
+from video_stabilization.ops import (
     bgr_to_gray,
     build_pyramid,
     pyr_down,
@@ -137,16 +137,16 @@ class TestPyramid:
         assert pyr[3].shape == (45, 80)
 
 
-class TestWarpAffineShear:
-    """Gather-free shear warp must match the gather warp / cv2 on affine
-    transforms (interior pixels; multi-pass interpolation differs from 2-D
-    bilinear by design, so tolerance is a few gray levels)."""
+class TestWarpAffineVsCv2:
+    """The affine output warp must match cv2.warpPerspective on affine
+    transforms (interior pixels; cv2's fixed-point bilinear weights differ
+    from float weights by a fraction of a gray level)."""
 
     def _check(self, img, h, tol_frac=0.9, tol=3.0):
         import cv2 as _cv2
-        from video_stabilization_tpu.ops.warp import warp_affine_shear
+        from video_stabilization.ops.warp import warp_affine
 
-        ours = np.asarray(warp_affine_shear(jnp.asarray(img), jnp.asarray(h)))
+        ours = np.asarray(warp_affine(jnp.asarray(img), jnp.asarray(h)))
         ref = _cv2.warpPerspective(
             img, h.astype(np.float64), (img.shape[1], img.shape[0]),
             flags=_cv2.INTER_LINEAR,
@@ -159,10 +159,8 @@ class TestWarpAffineShear:
 
     def test_sampling_map_exact(self, rng):
         """The decisive property: warping coordinate-ramp images measures the
-        effective sampling map, which must equal the analytic inverse map to
-        sub-millipixel accuracy (multi-pass interpolation softens intensities
-        slightly but must not displace content)."""
-        from video_stabilization_tpu.ops.warp import warp_affine_shear
+        effective sampling map, which must equal the analytic inverse map."""
+        from video_stabilization.ops.warp import warp_affine
 
         H2, W2 = 120, 160
         xr = np.tile(np.arange(W2, dtype=np.float32), (H2, 1))
@@ -175,8 +173,8 @@ class TestWarpAffineShear:
         ys, xs = np.mgrid[0:H2, 0:W2].astype(np.float64)
         sx = hinv[0, 0] * xs + hinv[0, 1] * ys + hinv[0, 2]
         sy = hinv[1, 0] * xs + hinv[1, 1] * ys + hinv[1, 2]
-        ox = np.asarray(warp_affine_shear(jnp.asarray(xr), jnp.asarray(h), border_value=-1))
-        oy = np.asarray(warp_affine_shear(jnp.asarray(yr), jnp.asarray(h), border_value=-1))
+        ox = np.asarray(warp_affine(jnp.asarray(xr), jnp.asarray(h), border_value=-1))
+        oy = np.asarray(warp_affine(jnp.asarray(yr), jnp.asarray(h), border_value=-1))
         sel = (ox >= 0) & (oy >= 0) & (sx > 1) & (sx < W2 - 2) & (sy > 1) & (sy < H2 - 2)
         assert np.abs((ox - sx)[sel]).max() < 2e-2
         assert np.abs((oy - sy)[sel]).max() < 2e-2
@@ -194,9 +192,6 @@ class TestWarpAffineShear:
         self._check(img, h, tol=1.0)
 
     def test_scaled_affine(self, rng):
-        # smoother content: scale-pass resampling of an already-interpolated
-        # signal diverges from direct bilinear on white noise, not on
-        # natural images (the sampling-map test guarantees geometry)
         img = cv2.GaussianBlur(rand_img(rng, 120, 160), (9, 9), 2.5)
         h = np.array(
             [[1.01 * np.cos(0.03), -1.01 * np.sin(0.03), 4.0],
@@ -206,28 +201,28 @@ class TestWarpAffineShear:
         self._check(img, h, tol_frac=0.85)
 
     def test_identity(self, rng):
-        from video_stabilization_tpu.ops.warp import warp_affine_shear
+        from video_stabilization.ops.warp import warp_affine
 
         img = rand_img(rng, 80, 100)
-        out = np.asarray(warp_affine_shear(jnp.asarray(img), jnp.eye(3)))
+        out = np.asarray(warp_affine(jnp.asarray(img), jnp.eye(3)))
         np.testing.assert_allclose(out, img, atol=1e-3)
 
     def test_color(self, rng):
-        from video_stabilization_tpu.ops.warp import warp_affine_shear
+        from video_stabilization.ops.warp import warp_affine
 
         img = rand_img(rng, 60, 80, 3)
         h = np.array([[1, 0, 5.0], [0, 1, 3.0], [0, 0, 1]], np.float32)
-        ours = np.asarray(warp_affine_shear(jnp.asarray(img), jnp.asarray(h)))
+        ours = np.asarray(warp_affine(jnp.asarray(img), jnp.asarray(h)))
         ref = cv2.warpPerspective(img, h.astype(np.float64), (80, 60))
         sel = ref > 1e-3
         assert (np.abs(ours - ref)[sel] < 1.0).mean() > 0.95
 
     def test_border_fill(self, rng):
-        from video_stabilization_tpu.ops.warp import warp_affine_shear
+        from video_stabilization.ops.warp import warp_affine
 
         img = rand_img(rng, 50, 50)
         h = np.array([[1, 0, 100.0], [0, 1, 0], [0, 0, 1]], np.float32)
-        out = np.asarray(warp_affine_shear(jnp.asarray(img), jnp.asarray(h),
+        out = np.asarray(warp_affine(jnp.asarray(img), jnp.asarray(h),
                                            border_value=7.5))
         assert np.all(out[:, :90] == 7.5)
 
@@ -237,7 +232,7 @@ class TestExtractPatchesMXU:
         """One-hot MXU extraction must equal direct (bf16) indexing on both
         contraction orders (landscape picks column-first, portrait
         row-first)."""
-        from video_stabilization_tpu.ops.patches import extract_patches_mxu
+        from video_stabilization.ops.patches import extract_patches_mxu
 
         rng = np.random.default_rng(3)
         for h, w in ((40, 64), (64, 40)):

@@ -10,12 +10,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.config import ORBConfig, RansacConfig
-from video_stabilization_tpu.motion import estimate_similarity_ransac
-from video_stabilization_tpu.ops.fast import fast_score
-from video_stabilization_tpu.ops.match import match_hamming_knn, match_l2
-from video_stabilization_tpu.ops.orb import orb_detect_and_compute
-from video_stabilization_tpu.sim import (
+from video_stabilization.config import ORBConfig, RansacConfig
+from video_stabilization.motion import estimate_similarity_ransac
+from video_stabilization.ops.fast import fast_score
+from video_stabilization.ops.match import match_hamming_knn, match_l2
+from video_stabilization.ops.reference import fast_score_reference
+from video_stabilization.ops.orb import orb_detect_and_compute
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     inter_frame_homography,
     make_default_texture,
@@ -54,26 +55,20 @@ class TestFAST:
         _, corners = fast_score(flat, 20.0)
         assert not bool(jnp.any(corners))
 
-    def test_pallas_kernel_matches_xla(self):
-        """The VMEM row-strip kernel must reproduce the XLA formulation
-        bit-for-bit (same subtract + min/max doubling order), including on
-        shapes that exercise strip/lane padding."""
-        from video_stabilization_tpu.ops.fast import fast_score_xla
-
+    def test_matches_bruteforce_segment_test(self):
+        """fast_score must equal the brute-force numpy segment test exactly,
+        including on shapes with odd and small sizes."""
         rng = np.random.default_rng(7)
         for shape in ((64, 80), (360, 640), (47, 133)):
-            img = jnp.asarray(rng.integers(0, 255, shape).astype(np.float32))
-            s_ref, c_ref = fast_score_xla(img, 20.0)
-            s_pl, c_pl = fast_score(img, 20.0)
-            np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_pl))
-            np.testing.assert_array_equal(np.asarray(c_ref), np.asarray(c_pl))
+            img = rng.integers(0, 255, shape).astype(np.float32)
+            s, c = fast_score(jnp.asarray(img), 20.0)
+            ref = fast_score_reference(img, 20.0)
+            np.testing.assert_array_equal(np.asarray(s), ref)
+            np.testing.assert_array_equal(np.asarray(c), ref > 0)
 
-    def test_pallas_kernel_matches_xla_on_pyramid_shapes(self):
-        """Every level shape of the production 360p ORB pyramid (odd widths
-        exercise the kernel's lane padding; short levels its strip
-        clamping) must match the XLA path exactly."""
-        from video_stabilization_tpu.ops.fast import fast_score_xla
-
+    def test_matches_bruteforce_on_pyramid_shapes(self):
+        """Every level shape of the production 360p ORB pyramid must match
+        the brute-force segment test exactly."""
         rng = np.random.default_rng(9)
         h0, w0 = 360, 640
         for level in range(12):
@@ -81,24 +76,21 @@ class TestFAST:
             lh, lw = int(round(h0 / s)), int(round(w0 / s))
             if lh <= 62 or lw <= 62:
                 break
-            img = jnp.asarray(
-                rng.integers(0, 255, (lh, lw)).astype(np.float32))
-            s_ref, _ = fast_score_xla(img, 20.0)
-            s_pl, _ = fast_score(img, 20.0)
+            img = rng.integers(0, 255, (lh, lw)).astype(np.float32)
+            got, _ = fast_score(jnp.asarray(img), 20.0)
             np.testing.assert_array_equal(
-                np.asarray(s_ref), np.asarray(s_pl),
+                np.asarray(got), fast_score_reference(img, 20.0),
                 err_msg=f"level {level} shape ({lh}, {lw})")
 
-    def test_pallas_kernel_matches_xla_batched(self):
-        """vmap over the kernel (the offline pipeline maps ORB detection
-        over chunk frames) must match the XLA path too."""
-        from video_stabilization_tpu.ops.fast import fast_score_xla
-
+    def test_matches_bruteforce_batched(self):
+        """vmap over fast_score (the offline pipeline maps ORB detection over
+        chunk frames) must match the per-image brute-force test."""
         rng = np.random.default_rng(8)
-        imgs = jnp.asarray(rng.integers(0, 255, (3, 72, 96)).astype(np.float32))
-        s_ref, _ = jax.vmap(lambda im: fast_score_xla(im, 20.0))(imgs)
-        s_pl, _ = jax.vmap(lambda im: fast_score(im, 20.0))(imgs)
-        np.testing.assert_array_equal(np.asarray(s_ref), np.asarray(s_pl))
+        imgs = rng.integers(0, 255, (3, 72, 96)).astype(np.float32)
+        got, _ = jax.vmap(lambda im: fast_score(im, 20.0))(jnp.asarray(imgs))
+        for i in range(3):
+            np.testing.assert_array_equal(
+                np.asarray(got[i]), fast_score_reference(imgs[i], 20.0))
 
 
 class TestORB:
@@ -152,7 +144,7 @@ class TestORB:
             RansacConfig(num_hypotheses=256, inlier_threshold=5.0),
         )
         assert bool(res.valid)
-        from video_stabilization_tpu.motion import decompose_homography
+        from video_stabilization.motion import decompose_homography
         params, ok = decompose_homography(res.h, jnp.array([W / 2, H / 2]))
         assert bool(ok)
         np.testing.assert_allclose(np.rad2deg(float(params.theta)), 25.0, atol=1.5)
@@ -186,7 +178,7 @@ class TestFactoredRotation:
         """The rot90-factored descriptor sampler must reproduce the direct
         72-bin steered lookup bit-for-bit (ops/orb.py _orient_and_describe;
         near-tie bits within bf16 rounding of the patch values excluded)."""
-        from video_stabilization_tpu.ops.orb import (
+        from video_stabilization.ops.orb import (
             _EXTRACT, _EXTRACT_RADIUS, _gauss7, _orient_and_describe,
             CENTROID_X, CENTROID_Y, N_ANGLE_BINS, PATCH_RADIUS,
             STEERED_LIN_1, STEERED_LIN_2,

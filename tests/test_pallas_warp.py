@@ -1,18 +1,14 @@
-"""Pallas 2-pass affine warp: geometric exactness, parity with the gather
-warp, borders, the projective fallback, and stream batching (vmap).
-
-Runs in interpreter mode on the CPU test mesh (ops/pallas_warp.py picks
-interpret automatically off-TPU), so these tests exercise the exact kernel
-logic that compiles on TPU.
-"""
+"""Affine output warp (ops/warp.py ``warp_affine``): geometric exactness,
+parity with the projective warp and a float64 reference, borders, large
+rotations, and stream batching (vmap)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from video_stabilization_tpu.ops.pallas_warp import warp_affine
-from video_stabilization_tpu.ops.warp import warp_perspective
+from video_stabilization.ops.reference import warp_bilinear_reference
+from video_stabilization.ops.warp import warp_affine, warp_perspective
 
 
 def rigid(theta_deg, tx=0.0, ty=0.0, s=1.0):
@@ -69,18 +65,20 @@ class TestGeometry:
 
 class TestParity:
     def test_matches_gather_warp_on_natural_content(self):
-        """Value parity with warp_perspective on smooth content; the 2-pass
-        interpolation differs from direct bilinear by O(beta * gradient), so
-        noise images are excluded by design (same acceptance the 3-pass
-        XLA shear used)."""
+        """Value parity with warp_perspective and with the float64 bilinear
+        reference on smooth content."""
         yy, xx = ramps()
-        img = jnp.asarray((np.sin(xx / 7) * np.cos(yy / 9) * 80 + 120).astype(np.float32))
+        img_np = (np.sin(xx / 7) * np.cos(yy / 9) * 80 + 120).astype(np.float32)
+        img = jnp.asarray(img_np)
         for theta in (1.0, 4.0, -3.0):
             h = rigid(theta, 2.5, -1.5)
             a = np.asarray(warp_affine(img, h, 0.0))
             b = np.asarray(warp_perspective(img, h, None, 0.0))
-            assert np.abs(a - b).mean() < 0.05
-            assert (np.abs(a - b) < 0.5).mean() > 0.99
+            ref = warp_bilinear_reference(img_np, np.asarray(h), 0.0)
+            assert np.abs(a - b).max() < 1e-3
+            # pixels exactly on the source edge may fall either side of the
+            # in-bounds test in float32 vs float64
+            assert (np.abs(a - ref) < 0.05).mean() > 0.995
 
     def test_border_fill(self):
         img = jnp.full((H, W, 3), 100.0)
@@ -92,9 +90,9 @@ class TestParity:
             out[:, 41:], np.full_like(out[:, 41:], 100.0), atol=1e-3
         )
 
-    def test_large_rotation_uses_projective_fallback(self):
-        """Rotations beyond the copy budget must take the gather path and
-        stay exact (lax.cond branch)."""
+    def test_large_rotation_equals_warp_perspective(self):
+        """A gather warp has no rotation envelope: 30 degrees renders the
+        same as the projective warp."""
         img = jnp.asarray(
             np.random.default_rng(2).uniform(0, 255, (H, W)).astype(np.float32)
         )
@@ -109,8 +107,8 @@ class TestBatched:
         rng = np.random.default_rng(3)
         imgs = jnp.asarray(rng.uniform(0, 255, (3, H, W, 3)).astype(np.float32))
         hs = jnp.stack([rigid(1.0, 2, 1), rigid(-2.0, -3, 0), rigid(0.0, 5, 5)])
-        f = jax.vmap(lambda im, hh: warp_affine(im, hh, 0.0, projective_fallback=False))
+        f = jax.vmap(lambda im, hh: warp_affine(im, hh, 0.0))
         out = np.asarray(f(imgs, hs))
         for i in range(3):
-            ref = np.asarray(warp_affine(imgs[i], hs[i], 0.0, projective_fallback=False))
+            ref = np.asarray(warp_affine(imgs[i], hs[i], 0.0))
             np.testing.assert_allclose(out[i], ref, atol=1e-3)

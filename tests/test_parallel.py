@@ -5,21 +5,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.config import (
+from video_stabilization.config import (
     GFTTConfig,
     LKConfig,
     RansacConfig,
     StabilizationMode,
     StabilizerConfig,
 )
-from video_stabilization_tpu.parallel import (
+from video_stabilization.parallel import (
     init_batched_carry,
     make_batched_step_fn,
     make_sharded_step_fn,
     make_stream_mesh,
 )
-from video_stabilization_tpu.parallel.streams import STREAM_AXIS, shard_carry
-from video_stabilization_tpu.sim import (
+from video_stabilization.parallel.streams import STREAM_AXIS, shard_carry
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     make_default_texture,
     render_frame,
@@ -64,7 +64,7 @@ class TestBatchedStep:
         bstep = make_batched_step_fn(cfg)
         bcarry = init_batched_carry(cfg, n_streams, 0, jax.random.key(7))
 
-        from video_stabilization_tpu.engine import make_step_fn
+        from video_stabilization.engine import make_step_fn
 
         sstep = make_step_fn(cfg)
         # slice per-stream carries out of the batched one so PRNG keys match
@@ -127,8 +127,8 @@ class TestShardedStep:
         8-device mesh, a K-frame chunk batched per stream — must agree with
         the per-stream streaming step (uint8 outputs, +-1 rounding flips
         from batched float order allowed)."""
-        from video_stabilization_tpu.engine import make_step_fn
-        from video_stabilization_tpu.parallel import make_sharded_offline_fn
+        from video_stabilization.engine import make_step_fn
+        from video_stabilization.parallel import make_sharded_offline_fn
 
         cfg = tiny_config()
         mesh = make_stream_mesh()
@@ -160,10 +160,10 @@ class TestServeHarness:
         match the in-memory sharded path exactly (same C420-decoded pixels
         in, same engine, writers just encode what came out).  VERDICT r3
         item 7."""
-        from video_stabilization_tpu.io.native import NativeY4MReader
-        from video_stabilization_tpu.io.video import VideoWriter
-        from video_stabilization_tpu.ops.image import yuv_flat_to_bgr
-        from video_stabilization_tpu.serve import (
+        from video_stabilization.io.native import NativeY4MReader
+        from video_stabilization.io.video import VideoWriter
+        from video_stabilization.ops.image import yuv_flat_to_bgr
+        from video_stabilization.serve import (
             pick_serving_devices, serve_files, stabilize_streams_sharded,
         )
 
@@ -184,7 +184,7 @@ class TestServeHarness:
         assert done == t
 
         # reference: decode the same C420 files, run the in-memory sharded path
-        from video_stabilization_tpu.parallel import make_stream_mesh
+        from video_stabilization.parallel import make_stream_mesh
 
         decoded = []
         for p in paths:
@@ -241,8 +241,8 @@ class TestServeModeNames:
         """serve_files must accept both CLI spellings ("smoothing") and raw
         enum names ("GLOBAL_SMOOTHING") — regression for the KeyError that
         broke the library-API path (serve.py mode resolution)."""
-        from video_stabilization_tpu.io.video import VideoWriter
-        from video_stabilization_tpu.serve import serve_files
+        from video_stabilization.io.video import VideoWriter
+        from video_stabilization.serve import serve_files
 
         p = str(tmp_path / "in.y4m")
         wr = VideoWriter(p, 30.0, (FH, FW), subsampling="420")

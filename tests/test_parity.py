@@ -12,10 +12,10 @@ import jax
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.config import ORBConfig, SIFTConfig
-from video_stabilization_tpu.ops.orb import orb_detect_and_compute
-from video_stabilization_tpu.ops.sift import sift_detect_and_compute
-from video_stabilization_tpu.sim import (
+from video_stabilization.config import ORBConfig, SIFTConfig
+from video_stabilization.ops.orb import orb_detect_and_compute
+from video_stabilization.ops.sift import sift_detect_and_compute
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     make_default_texture,
     render_frame,
@@ -45,7 +45,7 @@ def _match_by_position(pts_a, pts_b, tol):
 
 def _orb_bit_agreement(gray_u8, pattern):
     """Median per-keypoint descriptor bit agreement between cv2.ORB and the
-    TPU ORB (single level, spatially coincident keypoints)."""
+    engine ORB (single level, spatially coincident keypoints)."""
     orb = cv2.ORB_create(nfeatures=400, nlevels=1, edgeThreshold=31,
                          patchSize=31, fastThreshold=20,
                          scoreType=cv2.ORB_FAST_SCORE)

@@ -4,13 +4,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.config import RansacConfig
-from video_stabilization_tpu.motion import (
+from video_stabilization.config import RansacConfig
+from video_stabilization.motion import (
     estimate_similarity_ransac,
     fit_similarity_masked,
     similarity_from_2pt,
 )
-from video_stabilization_tpu.motion.similarity import transform_points
+from video_stabilization.motion.similarity import transform_points
 
 
 def make_similarity(s, theta, tx, ty):
@@ -110,7 +110,7 @@ class TestMotionModelRefit:
         return jnp.asarray(src), jnp.asarray(dst)
 
     def test_affine_refit_recovers_affine(self):
-        from video_stabilization_tpu.models.motion_models import (
+        from video_stabilization.models.motion_models import (
             MotionModel, fit_motion,
         )
 
@@ -127,7 +127,7 @@ class TestMotionModelRefit:
         np.testing.assert_allclose(np.asarray(res.h), h_true, atol=5e-2)
 
     def test_homography_refit_recovers_projective(self):
-        from video_stabilization_tpu.models.motion_models import (
+        from video_stabilization.models.motion_models import (
             MotionModel, fit_motion,
         )
 

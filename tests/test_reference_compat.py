@@ -9,13 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from video_stabilization_tpu.config import (
+from video_stabilization.config import (
     GFTTConfig, LKConfig, ORBConfig, RansacConfig, SIFTConfig,
     StabilizationMode, StabilizerConfig,
 )
-from video_stabilization_tpu.engine import Stabilizer
-from video_stabilization_tpu.sim import (
-    DEFAULT_APP_PARAMS, make_default_texture, render_frame, shake_trajectory,
+from video_stabilization.engine import Stabilizer
+from video_stabilization.sim import (
+    DEFAULT_APP_PARAMS, make_default_texture, render_frame, roll_clockwise,
+    shake_trajectory,
 )
 
 FH, FW = 240, 320
@@ -74,7 +75,14 @@ class TestQuirks:
                 footage[7 - 3].astype(np.float32), atol=1.0,
             )
 
-    def test_q4_fixed_mode_locks_are_not_noop(self, footage):
+    def test_q4_fixed_mode_locks_are_not_noop(self):
+        # a camera rolling 0.5 deg per frame: the rotation to cancel is real,
+        # not estimation noise on sub-0.1-degree shake
+        tex = make_default_texture(jax.random.key(0), size=256)
+        footage = np.stack([
+            np.asarray(render_frame(
+                tex, roll_clockwise(DEFAULT_APP_PARAMS, 0.25 * i), FH, FW))
+            for i in range(10)])
         stab = Stabilizer(cfg_(compat=False), StabilizationMode.ROTATION_LOCK)
         outs = [np.asarray(stab.stabilize_frame(f)) for f in footage[:10]]
         diffs = [

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.config import RansacConfig, SIFTConfig
-from video_stabilization_tpu.motion import decompose_homography, estimate_similarity_ransac
-from video_stabilization_tpu.ops.match import match_l2
-from video_stabilization_tpu.ops.sift import sift_detect_and_compute
-from video_stabilization_tpu.sim import (
+from video_stabilization.config import RansacConfig, SIFTConfig
+from video_stabilization.motion import decompose_homography, estimate_similarity_ransac
+from video_stabilization.ops.match import match_l2
+from video_stabilization.ops.sift import sift_detect_and_compute
+from video_stabilization.sim import (
     DEFAULT_APP_PARAMS,
     inter_frame_homography,
     make_default_texture,

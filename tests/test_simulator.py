@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from video_stabilization_tpu.sim import (
+from video_stabilization.sim import (
     CameraParams,
     DEFAULT_APP_PARAMS,
     inter_frame_homography,
@@ -153,7 +153,7 @@ class TestAnalyticHomography:
         np.testing.assert_allclose(h, np.eye(3), atol=1e-3)
 
     def test_roll_only_motion_is_rotation_about_center(self):
-        from video_stabilization_tpu.motion import decompose_homography
+        from video_stabilization.motion import decompose_homography
 
         pa = app_params()
         pb = pa._replace(roll=pa.roll + 2.0)
